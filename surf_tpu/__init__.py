@@ -1,7 +1,7 @@
-"""surf_tpu — a TPU-native differentiable wavefront path tracer.
+"""surf_tpu — a differentiable wavefront path tracer in JAX.
 
-A from-scratch JAX/Pallas/pjit re-design of the capabilities of
-``nemjit001/surf-path-tracer`` (reference mounted at /root/reference):
+A JAX re-design of the capabilities of ``nemjit001/surf-path-tracer``, run
+on NVIDIA GPUs (and on the CPU for tests):
 
 - ``core``      — vector math, bit-exact WangHash/xorshift32 RNG, sampling,
                   intersection primitives (reference: headers/surf_math.h,
@@ -11,18 +11,20 @@ A from-scratch JAX/Pallas/pjit re-design of the capabilities of
                   everything into device-resident SoA arrays (reference:
                   sources/mesh.cpp, sources/scene.cpp GPUBatcher, main.cpp).
 - ``accel``     — binned-SAH BVH builder (native C++ + NumPy fallback),
-                  TLAS/BLAS, refit, and the lockstep traversal used on device
-                  (reference: sources/bvh.cpp).
+                  TLAS/BLAS, refit, the skip-link traversal (XLA walk) and
+                  its Pallas GPU kernel (reference: sources/bvh.cpp,
+                  shaders/ray_extend.comp).
 - ``reference`` — slow, trusted NumPy oracle renderer replicating the CPU
                   megakernel semantics bit-for-bit at fixed seed (reference:
                   sources/renderer.cpp:331-463).
-- ``wavefront`` — the TPU forward path: raygen/extend/shade/connect/finalize
+- ``wavefront`` — the forward path: raygen/extend/shade/connect/finalize
                   as jitted stages with an on-device ``lax.while_loop`` wave
                   loop (reference: shaders/*.comp, renderer.cpp:939-1157).
 - ``diff``      — differentiable estimator (detached discrete sampling) and
                   finite-difference validation harness.
-- ``dist``      — multi-chip sharding over a ``jax.sharding.Mesh`` (image
-                  tiles sharded, scene replicated, psum gradient reduction).
+- ``dist``      — multi-card sharding over a ``jax.sharding.Mesh`` (pixel
+                  lanes sharded under ``shard_map``, scene replicated, psum
+                  gradient reduction).
 - ``app``       — CLI, config, metrics, PNG/NPY image output.
 """
 

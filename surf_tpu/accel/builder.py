@@ -169,9 +169,8 @@ def enforce_max_leaf(bvh: BVH, prim_lo, prim_hi, key, max_leaf: int) -> BVH:
     (median split along the largest-extent axis of the binning key).
 
     The SAH builder's parent-cost termination can produce arbitrarily fat
-    leaves (clustered centroids); the 8-wide TPU layout stores one leaf as
-    one 128-lane row of <= 8 triangles, so the render BVH bounds leaf size
-    here.  Node pool capacity 2n is sufficient for any full binary tree."""
+    leaves (clustered centroids), and a traversal lane tests a leaf's
+    triangles one per step, so the render BVH bounds leaf size here.  Node pool capacity 2n is sufficient for any full binary tree."""
     prim_lo = np.asarray(prim_lo, np.float32)
     prim_hi = np.asarray(prim_hi, np.float32)
     key = np.asarray(key, np.float32)
@@ -223,8 +222,7 @@ def build_blas(v0, v1, v2, min_leaf: int = 1,
                max_leaf: int | None = None) -> BVH:
     """BLAS over a triangle soup; bins by the 0.333f centroid (mesh.cpp:20).
 
-    ``max_leaf`` (optional) bounds leaf size via enforce_max_leaf — required
-    by the 8-wide kernel layout (one row per leaf)."""
+    ``max_leaf`` (optional) bounds leaf size via enforce_max_leaf."""
     lo, hi = triangle_bounds(v0, v1, v2)
     centroid = ((np.asarray(v0, np.float32) + v1 + v2) * np.float32(0.333)).astype(np.float32)
     bvh = build_bvh(lo, hi, centroid, min_leaf)

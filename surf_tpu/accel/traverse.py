@@ -1,23 +1,20 @@
-"""Lockstep BVH traversal on TPU — the `ray_extend`/`ray_connect` core.
+"""Stackless skip-link BVH traversal — the `ray_extend`/`ray_connect` core.
 
-TPU-native redesign of the reference's per-thread stackful traversal
-(/root/reference/sources/bvh.cpp:129-253 CPU, shaders/ray_extend.comp:26-165
-GPU).  A dense block of rays steps a per-lane automaton in lockstep under one
-``lax.while_loop``; divergence is handled by masking, not warps.
+Redesign of the reference's per-thread stackful traversal
+(reference/sources/bvh.cpp:129-253 CPU, shaders/ray_extend.comp:26-165 GPU).
+Nodes are laid out in DFS preorder with a per-node *skip link* (the DFS
+position of the next subtree), so a lane's whole control state is one index
+plus a leaf cursor: no per-lane stack.  Each step a lane either tests one
+triangle of the leaf it is in, or visits its current node (descend on a box
+hit, else jump to the skip link).  Hit selection (strictly-closer wins,
+mesh.cpp:56) is order-independent, so results equal the stack walk's modulo
+exact-t ties.
 
-The traversal is **stackless**: nodes are laid out in DFS preorder with a
-per-node *skip link* (the DFS position of the next subtree), so a lane's
-whole control state is one index.  The reference's 64-deep per-thread stack
-(bvh.cpp:13) would require a per-lane scatter into an [N, depth] array every
-step — measured pathologically slow through XLA on TPU (the scatter
-microbenchmark ran >100x slower than the equivalent gather) — while the
-skip-link walk needs only row gathers, which sustain ~2G rows/s.
-
-Cost trade: DFS order loses the stack version's near-first ordering, so a
-lane typically visits ~1.3-2x more nodes (the t-bound still prunes), in
-exchange for a scatter-free loop.  Hit selection (strictly-closer wins,
-mesh.cpp:56) is order-independent, so results are identical modulo exact-t
-ties.
+``walk_step`` is the one definition of a step.  ``traverse`` drives it for
+all N lanes in lockstep under ``lax.while_loop`` (the XLA walk, used on the
+CPU and as the reference); ``accel/gpu_traverse.py`` drives the same step
+inside a Pallas kernel, one block of rays per program, each block stopping
+when its own rays finish.
 
 Layout notes:
 - triangles are pre-permuted into leaf order at scene-compile time, so a
@@ -28,13 +25,13 @@ Layout notes:
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core.geometry import intersect_aabb, intersect_triangle
+from ..core.geometry import intersect_aabb_xyz, intersect_triangle_xyz, xyz
 from .builder import BVH
 
 
@@ -42,85 +39,13 @@ class TraceArrays(NamedTuple):
     """Device-resident flattened BVH + triangle geometry (jnp pytree).
 
     Nodes are in DFS preorder; ``node_meta[:, 0]`` = leaf first-tri slot,
-    ``[:, 1]`` = leaf tri count (0 for internal), ``[:, 2]`` = skip link.
-
-    ``nodes_packed`` / ``tris_packed`` are the VMEM record layout consumed
-    by the Pallas packet kernel (16 lanes per record, 8 records per 128-lane
-    row; see accel/pallas_traverse.py).  They are packed host-side at scene
-    compile so the pallas_call receives plain device arrays — packing them
-    inside the render jit handed the custom call transposed intermediates
-    whose layout assignment corrupted in-kernel reads (observed as OOB
-    device faults)."""
+    ``[:, 1]`` = leaf tri count (0 for internal), ``[:, 2]`` = skip link."""
 
     tri_v0: jnp.ndarray     # [T,3] leaf-ordered world-space vertices
     tri_v1: jnp.ndarray     # [T,3]
     tri_v2: jnp.ndarray     # [T,3]
     node_boxes: jnp.ndarray # [D,6] (lo xyz, hi xyz) in DFS order
     node_meta: jnp.ndarray  # [D,3] int32 (leaf_first, leaf_count, skip)
-    nodes_packed: jnp.ndarray  # [ceil(D/8)pad, 128] f32 packed records
-    tris_packed: jnp.ndarray   # [ceil(T/8)pad, 128] f32 packed records
-    wide_stream: jnp.ndarray | None = None   # [E,128] f32 8-wide DFS stream
-    wide_rec_slot: jnp.ndarray | None = None # [E*8] i32 rec -> tri slot
-    # (accel/wide.py; None in unit-test fixtures that only exercise the
-    # binary kernels — a None leaf is an empty pytree subtree.)
-    # algo="bits" dense LeafTable (accel/wide.py build_leaf_table):
-    wide_ltab: jnp.ndarray | None = None     # [n_pad,128] f32 packed rows
-    wide_lrec: jnp.ndarray | None = None     # [n_pad*8] i32 rec->tri slot
-    wide_box_lo: jnp.ndarray | None = None   # [3,E] f32 row+hierarchy boxes
-    wide_box_hi: jnp.ndarray | None = None   # [3,E] f32
-    wide_anc: jnp.ndarray | None = None      # [n_rows,MAXD] i32 root paths
-    wide_ltabw: jnp.ndarray | None = None    # [n_pad,128] f32 Baldwin–Weber
-    # algo="twolevel" shared-BLAS instanced tables (accel/pallas_instanced;
-    # built by HostCompiled(two_level=True); None otherwise):
-    inst_ltab: jnp.ndarray | None = None     # concatenated per-mesh tables
-    inst_box_lo: jnp.ndarray | None = None   # [3,E_tot] per-mesh box chains
-    inst_box_hi: jnp.ndarray | None = None
-    inst_xf: jnp.ndarray | None = None       # [I,128] inverse-3x4 rows
-    inst_wlo: jnp.ndarray | None = None      # [3,I] instance world AABBs
-    inst_whi: jnp.ndarray | None = None
-    inst_inv: jnp.ndarray | None = None      # [I,12] inverse 3x4 (phase 1)
-    inst_prim_map: jnp.ndarray | None = None # flat (inst,slot)->leaf slot
-    inst_prim_base: jnp.ndarray | None = None  # [I] offsets into prim_map
-    # algo="twolevelp" pure object-space mode (HostCompiled(
-    # two_level="pure")): no flattened arrays exist; hits are resolved in
-    # (instance, object-tri) space (reference bvh.cpp:481-513 end-to-end).
-    inst_obj_base: jnp.ndarray | None = None   # [I] base into obj_* arrays
-    inst_slot_perm: jnp.ndarray | None = None  # [Tu] mesh-local leaf slot
-    #                                          #   -> mesh-local original id
-
-
-def pack_records_np(f32_cols, i32_cols) -> np.ndarray:
-    """Host-side packer for the Pallas record layout: 16 lanes per record
-    (f32 fields then int32 fields bitcast to f32), 8 records per row."""
-    n = len(f32_cols[0])
-    cols = [np.asarray(c, np.float32) for c in f32_cols] + [
-        np.asarray(c, np.int32).view(np.float32) for c in i32_cols
-    ]
-    k = len(cols)
-    assert k <= 16
-    rec = np.zeros((n, 16), np.float32)
-    for j, c in enumerate(cols):
-        rec[:, j] = c
-    rows = (n + 7) // 8
-    rows_pad = rows + ((-rows) % 8)
-    flat = np.zeros((rows_pad * 8, 16), np.float32)
-    flat[:n] = rec
-    return flat.reshape(rows_pad, 128)
-
-
-def pack_trace_tables(tri_v0, tri_v1, tri_v2, boxes, meta):
-    """Build (nodes_packed, tris_packed) from host arrays."""
-    nodes_packed = pack_records_np(
-        [boxes[:, i] for i in range(6)], [meta[:, i] for i in range(3)]
-    )
-    e1 = np.asarray(tri_v1, np.float32) - tri_v0
-    e2 = np.asarray(tri_v2, np.float32) - tri_v0
-    tris_packed = pack_records_np(
-        [tri_v0[:, 0], tri_v0[:, 1], tri_v0[:, 2],
-         e1[:, 0], e1[:, 1], e1[:, 2], e2[:, 0], e2[:, 1], e2[:, 2]],
-        [],
-    )
-    return nodes_packed, tris_packed
 
 
 def skiplink_boxes(bvh: BVH, order: np.ndarray) -> np.ndarray:
@@ -183,25 +108,93 @@ def build_skiplinks(
     return boxes, meta
 
 
-def bvh_max_depth(bvh: BVH) -> int:
-    """Tree depth (informational; the stackless walk needs no stack)."""
-    depth = 0
-    stack = [(0, 1)]
-    while stack:
-        node, dd = stack.pop()
-        depth = max(depth, dd)
-        if bvh.count[node] == 0:
-            left = int(bvh.left_first[node])
-            stack.append((left, dd + 1))
-            stack.append((left + 1, dd + 1))
-    return depth
-
-
 class Hit(NamedTuple):
     prim: jnp.ndarray  # [N] int32 leaf-order triangle id, -1 on miss
     t: jnp.ndarray     # [N] float32
     u: jnp.ndarray     # [N] float32
     v: jnp.ndarray     # [N] float32
+
+
+class WalkState(NamedTuple):
+    """Per-lane automaton state of the skip-link walk."""
+
+    dfs: jnp.ndarray       # [N] int32 next node to visit (>= END: done)
+    leaf_ptr: jnp.ndarray  # [N] int32 next triangle slot of the open leaf
+    leaf_end: jnp.ndarray  # [N] int32 end of the open leaf
+    best_t: jnp.ndarray    # [N] f32 closest hit so far (starts at t_max)
+    best_prim: jnp.ndarray # [N] int32
+    best_u: jnp.ndarray    # [N] f32
+    best_v: jnp.ndarray    # [N] f32
+
+
+def walk_init(t_max, active, end) -> WalkState:
+    """Inactive lanes start done (dfs = END, empty leaf)."""
+    zi = jnp.zeros_like(t_max, dtype=jnp.int32)
+    zf = jnp.zeros_like(t_max, dtype=jnp.float32)
+    return WalkState(
+        dfs=jnp.where(active, zi, zi + end),
+        leaf_ptr=zi, leaf_end=zi,
+        best_t=t_max.astype(jnp.float32),
+        best_prim=zi - 1, best_u=zf, best_v=zf,
+    )
+
+
+def walk_done(s: WalkState, end):
+    return (s.dfs >= end) & (s.leaf_ptr >= s.leaf_end)
+
+
+# fetch_tri(slot) -> (v0, v1, v2) and fetch_node(node) -> (lo, hi, first,
+# count, skip), with every 3-vector an (x, y, z) tuple of [N] arrays.
+TriFetch = Callable[[jnp.ndarray], tuple]
+NodeFetch = Callable[[jnp.ndarray], tuple]
+
+
+def walk_step(s: WalkState, origin, direction, inv_dir, end, n_tris: int,
+              fetch_tri: TriFetch, fetch_node: NodeFetch,
+              any_hit: bool) -> WalkState:
+    """One lockstep step of every lane: a triangle test for lanes inside a
+    leaf, then a node visit for lanes outside one.  Done lanes are fixed
+    points, so extra steps never change a lane's result.  For ``any_hit``
+    a lane stops at its first hit (intersectAny's early-out,
+    bvh.cpp:193-253)."""
+    in_leaf = s.leaf_ptr < s.leaf_end
+
+    # ---- LEAF step: one triangle test per lane in leaf mode --------------
+    slot = jnp.clip(s.leaf_ptr, 0, n_tris - 1)
+    v0, v1, v2 = fetch_tri(slot)
+    hit, t, u, v = intersect_triangle_xyz(origin, direction, v0, v1, v2,
+                                          s.best_t)
+    upd = in_leaf & hit
+    best_t = jnp.where(upd, t, s.best_t)
+    best_prim = jnp.where(upd, slot, s.best_prim)
+    best_u = jnp.where(upd, u, s.best_u)
+    best_v = jnp.where(upd, v, s.best_v)
+    leaf_ptr = jnp.where(in_leaf, s.leaf_ptr + 1, s.leaf_ptr)
+    leaf_end = s.leaf_end
+    if any_hit:
+        leaf_ptr = jnp.where(upd, leaf_end, leaf_ptr)
+
+    # ---- NODE step: lanes not in leaf mode visit their dfs node ----------
+    trav = ~in_leaf & (s.dfs < end)
+    if any_hit:
+        trav = trav & (best_prim < 0)
+    node = jnp.where(trav, s.dfs, jnp.zeros_like(s.dfs))
+    lo, hi, first, count, skip = fetch_node(node)
+    dist = intersect_aabb_xyz(origin, inv_dir, lo, hi, best_t)
+    box_hit = dist < jnp.float32(1e30)
+    is_leaf = count > 0
+
+    enter_leaf = trav & box_hit & is_leaf
+    leaf_ptr = jnp.where(enter_leaf, first, leaf_ptr)
+    leaf_end = jnp.where(enter_leaf, first + count, leaf_end)
+
+    new_dfs = jnp.where(
+        trav, jnp.where(box_hit & ~is_leaf, s.dfs + 1, skip), s.dfs)
+    if any_hit:
+        new_dfs = jnp.where(best_prim >= 0, jnp.zeros_like(s.dfs) + end,
+                            new_dfs)
+    return WalkState(new_dfs, leaf_ptr, leaf_end, best_t, best_prim, best_u,
+                     best_v)
 
 
 def traverse(
@@ -210,88 +203,32 @@ def traverse(
     direction: jnp.ndarray,
     t_max: jnp.ndarray,
     active: jnp.ndarray,
-    stack_depth: int = 0,  # unused (kept for call-site compatibility)
     any_hit: bool = False,
 ) -> Hit:
-    """Closest-hit (any_hit=False) or occlusion (any_hit=True) traversal.
+    """Closest-hit (any_hit=False) or occlusion (any_hit=True) traversal of
+    all lanes in lockstep: the XLA walk.
 
     For any_hit the returned ``prim`` is >= 0 where occluded (first hit
     found, matching intersectAny's early-out, bvh.cpp:193-253)."""
-    n = origin.shape[0]
-    d_total = arrays.node_boxes.shape[0]
-    END = jnp.int32(d_total)
-    inv_dir = jnp.float32(1.0) / direction
+    end = jnp.int32(arrays.node_boxes.shape[0])
+    n_tris = arrays.tri_v0.shape[0]
+    o, d = xyz(origin), xyz(direction)
+    inv_dir = tuple(jnp.float32(1.0) / c for c in d)
 
-    state = dict(
-        dfs=jnp.where(active, jnp.int32(0), END),
-        leaf_ptr=jnp.zeros(n, jnp.int32),
-        leaf_end=jnp.zeros(n, jnp.int32),
-        best_t=t_max.astype(jnp.float32),
-        best_prim=jnp.full(n, -1, jnp.int32),
-        best_u=jnp.zeros(n, jnp.float32),
-        best_v=jnp.zeros(n, jnp.float32),
-    )
+    def fetch_tri(slot):
+        return tuple(xyz(jnp.take(a, slot, axis=0))
+                     for a in (arrays.tri_v0, arrays.tri_v1, arrays.tri_v2))
 
-    def lane_done(s):
-        return (s["dfs"] >= END) & (s["leaf_ptr"] >= s["leaf_end"])
+    def fetch_node(node):
+        b = jnp.take(arrays.node_boxes, node, axis=0)
+        m = jnp.take(arrays.node_meta, node, axis=0)
+        return (b[:, 0], b[:, 1], b[:, 2]), (b[:, 3], b[:, 4], b[:, 5]), \
+            m[:, 0], m[:, 1], m[:, 2]
 
-    def cond(s):
-        return jnp.any(~lane_done(s))
-
-    def body(s):
-        in_leaf = s["leaf_ptr"] < s["leaf_end"]
-
-        # ---- LEAF step: one triangle test per lane in leaf mode ----------
-        slot = jnp.clip(s["leaf_ptr"], 0, arrays.tri_v0.shape[0] - 1)
-        v0 = jnp.take(arrays.tri_v0, slot, axis=0)
-        v1 = jnp.take(arrays.tri_v1, slot, axis=0)
-        v2 = jnp.take(arrays.tri_v2, slot, axis=0)
-        hit, t, u, v = intersect_triangle(origin, direction, v0, v1, v2, s["best_t"])
-        upd = in_leaf & hit
-        best_t = jnp.where(upd, t, s["best_t"])
-        best_prim = jnp.where(upd, slot, s["best_prim"])
-        best_u = jnp.where(upd, u, s["best_u"])
-        best_v = jnp.where(upd, v, s["best_v"])
-        leaf_ptr = jnp.where(in_leaf, s["leaf_ptr"] + 1, s["leaf_ptr"])
-        leaf_end = s["leaf_end"]
-        if any_hit:
-            # intersectAny early-out: stop the lane on first hit.
-            leaf_ptr = jnp.where(upd, leaf_end, leaf_ptr)
-
-        # ---- NODE step: lanes not in leaf mode visit their dfs node ------
-        trav = ~in_leaf & (s["dfs"] < END)
-        if any_hit:
-            trav = trav & (best_prim < 0)
-        node = jnp.where(trav, s["dfs"], jnp.int32(0))
-        boxes = jnp.take(arrays.node_boxes, node, axis=0)
-        meta = jnp.take(arrays.node_meta, node, axis=0)
-        leaf_count = meta[:, 1]
-        skip = meta[:, 2]
-        dist = intersect_aabb(origin, inv_dir, boxes[:, 0:3], boxes[:, 3:6], best_t)
-        box_hit = dist < jnp.float32(1e30)
-        is_leaf = leaf_count > 0
-
-        enter_leaf = trav & box_hit & is_leaf
-        leaf_ptr = jnp.where(enter_leaf, meta[:, 0], leaf_ptr)
-        leaf_end = jnp.where(enter_leaf, meta[:, 0] + leaf_count, leaf_end)
-
-        new_dfs = jnp.where(
-            trav,
-            jnp.where(box_hit & ~is_leaf, s["dfs"] + 1, skip),
-            s["dfs"],
-        )
-        if any_hit:
-            new_dfs = jnp.where(best_prim >= 0, END, new_dfs)
-
-        return dict(
-            dfs=new_dfs,
-            leaf_ptr=leaf_ptr,
-            leaf_end=leaf_end,
-            best_t=best_t,
-            best_prim=best_prim,
-            best_u=best_u,
-            best_v=best_v,
-        )
-
-    out = jax.lax.while_loop(cond, body, state)
-    return Hit(prim=out["best_prim"], t=out["best_t"], u=out["best_u"], v=out["best_v"])
+    out = jax.lax.while_loop(
+        lambda s: jnp.any(~walk_done(s, end)),
+        lambda s: walk_step(s, o, d, inv_dir, end, n_tris, fetch_tri,
+                            fetch_node, any_hit),
+        walk_init(t_max, active, end))
+    return Hit(prim=out.best_prim, t=out.best_t, u=out.best_u,
+               v=out.best_v)

@@ -35,12 +35,10 @@ class AppConfig:
     compact: bool = False          # stream compaction each wave
     defer: bool = False            # cross-frame deferral of capped paths
     wave_limit: int | None = None  # override the per-sample wave cap
-    algo: str | None = None        # wide-kernel walk algorithm override
     ladder: int = 0                # width-ladder rungs for the wave loop
     ladder_shrink: int = 4         # ladder width divisor per rung
-    block_rays: int | None = None  # traversal packet size override
     pixel_order: str = "native"    # lane->pixel map ("morton" = tiled
-                                   # traversal packets; bit-identical)
+                                   # traversal blocks; bit-identical)
     frames_in_flight: int = 1      # dispatch-ahead depth (renderer.h:22 = 3)
 
     @classmethod

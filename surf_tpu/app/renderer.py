@@ -2,8 +2,8 @@
 
 Mirrors the reference's renderer interface (IRenderer:
 clearAccumulator / render(deltaTime) / config() / frameInfo(),
-/root/reference/headers/renderer.h:87-97) so users of the reference find
-the same surface here.  `WavefrontRenderer` is the TPU analog of
+reference/headers/renderer.h:87-97) so users of the reference find
+the same surface here.  `WavefrontRenderer` is the analog of
 WaveFrontRenderer (renderer.h:207-436); `OracleRendererFacade` wraps the
 NumPy oracle the way `Renderer` wraps the CPU path."""
 
@@ -34,9 +34,8 @@ class WavefrontRenderer:
     """Progressive wavefront renderer over a compiled scene."""
 
     def __init__(self, host_compiled, camera, config: RendererConfigHost,
-                 use_pallas: bool | None = None, compact: bool = False,
-                 defer: bool = False, wave_limit: int | None = None,
-                 algo: str | None = None):
+                 compact: bool = False, defer: bool = False,
+                 wave_limit: int | None = None):
         import jax
 
         from ..scene.camera import CameraParams
@@ -51,12 +50,9 @@ class WavefrontRenderer:
             config.samples_per_frame,
             use_defocus=camera.defocus_angle != 0.0,
             max_bounces=config.max_bounces,
-            use_pallas=use_pallas,
         )._replace(compact=compact)
         if wave_limit is not None:
             self._rcfg = self._rcfg._replace(wave_limit=wave_limit)
-        if algo is not None:
-            self._rcfg = self._rcfg._replace(algo=algo)
         from ..wavefront.accumulator import Accumulator
 
         self._acc = Accumulator(camera.screen_width, camera.screen_height)

@@ -12,12 +12,15 @@ its own basis from target - position).
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 
-F32_FAR_AWAY = jnp.float32(1e30)   # surf_math.h:17
-F32_EPSILON = jnp.float32(1e-5)    # surf_math.h:18
-F32_PI = jnp.float32(3.14159265358979323846264)
-F32_INV_PI = jnp.float32(0.31830988618379067153777)
-F32_2PI = jnp.float32(6.28318530717958647692528)
+# NumPy scalars, not device arrays: importing this module touches no
+# backend, and a kernel body may close over them as literals.
+F32_FAR_AWAY = np.float32(1e30)    # surf_math.h:17
+F32_EPSILON = np.float32(1e-5)     # surf_math.h:18
+F32_PI = np.float32(3.14159265358979323846264)
+F32_INV_PI = np.float32(0.31830988618379067153777)
+F32_2PI = np.float32(6.28318530717958647692528)
 
 WORLD_FORWARD = jnp.array([0.0, 0.0, -1.0], dtype=jnp.float32)  # camera.h:7
 WORLD_RIGHT = jnp.array([1.0, 0.0, 0.0], dtype=jnp.float32)     # camera.h:8

@@ -1,16 +1,16 @@
-"""Multi-host initialization (BASELINE config 5, SURVEY.md §2.4/§5.8).
+"""Multi-process initialization for the sharded render.
 
-On a multi-host pod slice every host runs the same program; call
-``init_multihost()`` before building the mesh so jax.distributed wires the
-DCN coordination layer, then build the ('hosts', 'chips') mesh with
-``make_host_chip_mesh``.  The render/grad code in dist/sharding.py is
-expressed purely with NamedShardings, so it runs unchanged: XLA routes
-the lane-sharded image over all chips and the gradient all-reduce over
-ICI within hosts and DCN across them.
+With one process per host (or per card), every process runs the same
+program; call ``init_multihost()`` before building the mesh so
+jax.distributed connects the processes, then build the ('hosts', 'chips')
+mesh with ``make_host_chip_mesh``.  The render/grad code in
+dist/sharding.py runs unchanged on it: lanes split over both axes, and the
+gradient psum spans every card.
 
-This module cannot be exercised in the single-host dev image (the test
-suite validates the sharding semantics on a virtual 8-device CPU mesh
-instead); it is the production entry point.
+Nothing on a single machine announces a cluster, so pass the coordinator
+address (``host:port``), the number of processes and this process's id.
+The test suite checks the sharding semantics on a virtual 8-device CPU mesh
+instead.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ import numpy as np
 def init_multihost(coordinator_address: str | None = None,
                    num_processes: int | None = None,
                    process_id: int | None = None) -> None:
-    """jax.distributed.initialize with env-var fallbacks (standard TPU pod
-    metadata auto-detection when no arguments are given)."""
+    """jax.distributed.initialize; with no arguments JAX uses whatever
+    cluster environment it detects."""
     import jax
 
     kwargs = {}

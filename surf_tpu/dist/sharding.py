@@ -1,28 +1,23 @@
-"""Multi-chip distribution: image tiles + ray lanes sharded over a device
-mesh, scene/BVH replicated, material/camera gradients all-reduced.
+"""Multi-card distribution: pixel lanes sharded over a device mesh, scene
+replicated, material/camera gradients all-reduced.
 
 The reference is single-GPU (SURVEY.md §2.3 P8 'absent'); this subsystem
-*adds* distribution per BASELINE.json: a 1-D ``Mesh(('chips',))`` (extended
-to ('hosts','chips') on multi-host pods via jax.distributed), with
+*adds* distribution: a 1-D ``Mesh(('chips',))`` (or a 2-D ('hosts',
+'chips') mesh across processes via jax.distributed), with
 
 - pixel lanes (and thus every per-ray SoA array of the wavefront state)
-  sharded along 'chips' — pure data parallelism over the image, the natural
-  decomposition for path tracing: zero cross-chip traffic in the forward
-  bounce loop except the wave-termination all-reduce XLA derives from
-  ``jnp.any(alive)``;
-- the compiled scene (triangles, BVH pairs, material table) replicated, so
-  traversal gathers stay chip-local HBM reads;
-- gradients: each chip back-propagates its own pixels' radiance into the
-  *replicated* material/camera leaves, and XLA inserts the ``psum``
-  all-reduce over ICI automatically from the sharding annotations — the
-  'material-gradient all-reduce overlapped with backward shading' of the
-  BASELINE north star (overlap is XLA's latency-hiding scheduler's job once
-  the reduce is in the graph).
-
-Everything is expressed with ``jax.jit`` + ``NamedSharding`` constraints
-(pjit style) rather than hand-written collectives: SPMD partitioning derives
-the communication, and the same code runs on 1 chip, a v5e-8, or a
-multi-host slice.
+  split over every mesh axis — pure data parallelism over the image, the
+  natural decomposition for path tracing;
+- the per-lane render run under ``jax.shard_map``: each card renders its
+  own lanes with its own wave loop, which exits when ITS paths finish (no
+  cross-card reduction per wave), and the traversal kernel, opaque to the
+  SPMD partitioner, sees only local lanes;
+- the compiled scene (triangles, BVH, material table) replicated, so
+  traversal gathers stay card-local reads;
+- gradients: each card back-propagates its own pixels' radiance into the
+  *replicated* material/camera leaves; the transpose of ``shard_map``'s
+  replicated inputs is a ``psum``, so the gradient all-reduce is in the
+  graph and XLA's scheduler may overlap it with the backward pass.
 """
 
 from __future__ import annotations
@@ -101,6 +96,25 @@ def _render_lanes(scene: RenderScene, cfg: RenderConfig, cam: CameraParams,
     return acc
 
 
+def _shard_lanes(cfg: RenderConfig, mesh: Mesh):
+    """``_render_lanes`` under ``shard_map``: scene and camera replicated,
+    lane arrays split over every mesh axis.  ``check_vma`` is off because
+    the traversal kernel's body does not track mesh-axis variance; the
+    transpose still psums the cotangents of the replicated inputs."""
+    lanes = _lane_spec(mesh)
+    return jax.shard_map(
+        lambda scene, cam, seed0, px, py: _render_lanes(
+            scene, cfg, cam, seed0, px, py),
+        mesh=mesh, in_specs=(P(), P(), lanes, lanes, lanes),
+        out_specs=lanes, check_vma=False)
+
+
+@partial(jax.jit, static_argnums=(1, 2))
+def _render_sharded(scene: RenderScene, cfg: RenderConfig, mesh: Mesh, cam,
+                    seed0, px, py):
+    return _shard_lanes(cfg, mesh)(scene, cam, seed0, px, py)
+
+
 def render_frame_sharded(scene: RenderScene, cfg: RenderConfig,
                          cam: CameraParams, total_samples, mesh: Mesh):
     """Forward frame render with pixel lanes sharded over mesh axis 'chips'.
@@ -120,20 +134,15 @@ def render_frame_sharded(scene: RenderScene, cfg: RenderConfig,
     scene = jax.device_put(scene, repl)
     cam = jax.device_put(cam, repl)
 
-    fn = jax.jit(
-        _render_lanes,
-        static_argnums=(1,),
-        out_shardings=lane_sharding,
-    )
-    acc = fn(scene, cfg, cam, seed0, px, py)
+    acc = _render_sharded(scene, cfg, mesh, cam, seed0, px, py)
     return acc.reshape(cfg.height, cfg.width, 3)
 
 
-def _grad_step_prepared(scene: RenderScene, cfg: RenderConfig,
-                        targets: DiffTargets, total_samples, mesh: Mesh,
-                        reference_image=None):
-    """Shared setup for grad_step_sharded / grad_step_compiled_text:
-    places args on the mesh and returns (jitted_fn, args)."""
+def _grad_step_args(scene: RenderScene, cfg: RenderConfig,
+                    targets: DiffTargets, total_samples, mesh: Mesh,
+                    reference_image=None):
+    """Shared setup for grad_step_sharded / grad_step_compiled: places the
+    arguments of ``_sharded_value_and_grad`` on the mesh."""
     n = cfg.width * cfg.height
     n_dev = mesh.devices.size
     assert n % n_dev == 0
@@ -153,48 +162,53 @@ def _grad_step_prepared(scene: RenderScene, cfg: RenderConfig,
         ref = jax.device_put(
             jnp.asarray(reference_image).reshape(n, 3), lane_sharding
         )
+    return targets, scene, seed0, px, py, ref
 
-    # NOTE: every sharded lane array must be an explicit jit argument —
-    # closure-captured sharded arrays are treated as constants and defeat
-    # SPMD partitioning (observed: single-partition HLO, no all-reduce).
-    def loss_fn(t, sc, seed0, px, py, ref_lanes):
-        img = _render_lanes(
-            apply_targets(sc, t), cfg, t.camera, seed0, px, py
+
+# NOTE: every sharded lane array must be an explicit jit argument —
+# closure-captured sharded arrays are treated as constants and defeat SPMD
+# partitioning (observed: single-partition HLO, no all-reduce).  cfg and
+# mesh are static, so repeated steps reuse one executable.
+@partial(jax.jit, static_argnames=("cfg", "mesh"))
+def _sharded_value_and_grad(targets, scene, seed0, px, py, ref_lanes, *,
+                            cfg: RenderConfig, mesh: Mesh):
+    render = _shard_lanes(cfg, mesh)
+
+    def loss_fn(t):
+        img = render(
+            apply_targets(scene, t), t.camera, seed0, px, py
         ) / jnp.float32(cfg.spp)
         if ref_lanes is not None:
             d = img - ref_lanes
             return jnp.mean(d * d)
         return jnp.mean(img)
 
-    fn = jax.jit(
-        jax.value_and_grad(loss_fn),
-        static_argnames=(),
-        out_shardings=(repl, repl),
-    )
-    return fn, (targets, scene, seed0, px, py, ref)
+    return jax.lax.with_sharding_constraint(
+        jax.value_and_grad(loss_fn)(targets), NamedSharding(mesh, P()))
 
 
 def grad_step_sharded(scene: RenderScene, cfg: RenderConfig,
                       targets: DiffTargets, total_samples, mesh: Mesh,
                       reference_image=None):
     """One differentiable render + backward over the mesh: lanes sharded,
-    targets replicated; the gradient all-reduce is derived by SPMD from the
-    replicated-out-sharding constraint.  Returns (loss, grads) replicated."""
-    fn, args = _grad_step_prepared(
-        scene, cfg, targets, total_samples, mesh, reference_image)
-    return fn(*args)
+    targets replicated; the gradient all-reduce is the psum that transposes
+    shard_map's replicated inputs.  Returns (loss, grads) replicated."""
+    args = _grad_step_args(scene, cfg, targets, total_samples, mesh,
+                           reference_image)
+    return _sharded_value_and_grad(*args, cfg=cfg, mesh=mesh)
 
 
 def grad_step_compiled(scene: RenderScene, cfg: RenderConfig,
                        targets: DiffTargets, total_samples, mesh: Mesh,
                        reference_image=None):
     """Compiled (but not executed) sharded grad step — lets tests assert
-    on the partitioned HLO itself (VERDICT r3 item 5): lanes actually
-    sharded over the mesh axes and a cross-device all-reduce present for
-    the replicated material/camera gradients."""
-    fn, args = _grad_step_prepared(
-        scene, cfg, targets, total_samples, mesh, reference_image)
-    return fn.lower(*args).compile(), args
+    on the partitioned HLO itself: lanes actually sharded over the mesh
+    axes and a cross-device all-reduce present for the replicated
+    material/camera gradients."""
+    args = _grad_step_args(scene, cfg, targets, total_samples, mesh,
+                           reference_image)
+    return _sharded_value_and_grad.lower(
+        *args, cfg=cfg, mesh=mesh).compile(), args
 
 
 class ShardedSession:
@@ -219,10 +233,6 @@ class ShardedSession:
         self.px = jax.device_put(px, self.lane_sharding)
         self.py = jax.device_put(py, self.lane_sharding)
         self.scene = jax.device_put(scene, self.repl)
-        self._fn = jax.jit(
-            _render_lanes, static_argnums=(1,),
-            out_shardings=self.lane_sharding,
-        )
 
     def update_scene(self, scene: RenderScene) -> None:
         """Re-place scene arrays (animation refresh); sharding unchanged."""
@@ -235,7 +245,8 @@ class ShardedSession:
         lane = jnp.arange(n, dtype=jnp.uint32)
         seed0 = jax.device_put(
             rng.pixel_seed(lane, total_samples), self.lane_sharding)
-        acc = self._fn(self.scene, cfg, cam, seed0, self.px, self.py)
+        acc = _render_sharded(self.scene, cfg, self.mesh, cam, seed0,
+                              self.px, self.py)
         return acc.reshape(cfg.height, cfg.width, 3)
 
 

@@ -413,15 +413,22 @@ class OracleRenderer:
         out = np.zeros((height, width, 3), np.float32)
         for y0 in range(0, height, rows_per_batch):
             y1 = min(y0 + rows_per_batch, height)
-            n = (y1 - y0) * width
-            lane = np.arange(y0 * width, y1 * width, dtype=np.int64)
-            py, px = np.divmod(lane, width)
-            # row-major pixelIndex = x + y * width (renderer.cpp:167)
-            seed = R.pixel_seed(lane, total_samples)
-            acc = np.zeros((n, 3), np.float32)
-            for _ in range(spp):
-                seed, o, d = self._primary_rays(seed, px, py)
-                seed, e = self._trace(seed, o, d)
-                acc += e
-            out[y0:y1] = acc.reshape(y1 - y0, width, 3)
+            out[y0:y1] = self.render_rows(width, y0, y1, spp, total_samples)
         return out
+
+    def render_rows(self, width: int, y0: int, y1: int, spp: int,
+                    total_samples: int = 0) -> np.ndarray:
+        """Rows [y0, y1) of the frame ``render`` returns: every pixel owns
+        its own RNG stream, so row bands can be rendered apart (and in
+        parallel) and stacked."""
+        n = (y1 - y0) * width
+        lane = np.arange(y0 * width, y1 * width, dtype=np.int64)
+        py, px = np.divmod(lane, width)
+        # row-major pixelIndex = x + y * width (renderer.cpp:167)
+        seed = R.pixel_seed(lane, total_samples)
+        acc = np.zeros((n, 3), np.float32)
+        for _ in range(spp):
+            seed, o, d = self._primary_rays(seed, px, py)
+            seed, e = self._trace(seed, o, d)
+            acc += e
+        return acc.reshape(y1 - y0, width, 3)

@@ -177,12 +177,11 @@ def make_indoor_camera(width: int, height: int) -> Camera:
 
 def make_instanced_stress_scene(n_instances: int = 200,
                                 mesh_name: str = "susanne.obj") -> Scene:
-    """High-instance-count scene for the two-level traversal (VERDICT r4
-    item 3): n copies of ONE shared mesh on a jittered grid over a floor
+    """High-instance-count scene for a two-level traversal: n copies of ONE shared mesh on a jittered grid over a floor
     plane, one emissive cube.  Flattened compile stores n * mesh_tris
-    world triangles; HostCompiled(two_level="pure") stores the mesh ONCE —
-    the scene where the reference's TLAS->instance->BLAS design
-    (bvh.cpp:481-513) pays off."""
+    world triangles, where a two-level traversal would store the mesh
+    ONCE — the scene where the reference's TLAS->instance->BLAS design
+    (bvh.cpp:481-513) pays off (host oracle: accel/twolevel.py)."""
     mesh = load_mesh_or_fallback(mesh_name)
     plane = load_mesh_or_fallback("plane.obj")
     cube = load_mesh_or_fallback("cube.obj")

@@ -1,1 +1,6 @@
-from .platform import force_cpu  # noqa: F401
+from .platform import (  # noqa: F401
+    card_name_and_power_limit,
+    force_cpu,
+    require_gpu,
+    use_compile_cache,
+)

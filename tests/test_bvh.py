@@ -7,28 +7,18 @@ import numpy as np
 import pytest
 
 from surf_tpu.accel import builder
-from surf_tpu.accel.traverse import (
-    TraceArrays,
-    build_skiplinks,
-    bvh_max_depth,
-    pack_trace_tables,
-    traverse,
-)
+from surf_tpu.accel.traverse import TraceArrays, build_skiplinks, traverse
+from surf_tpu.scene.mesh import make_cube, make_icosphere
 
 
 def _trace_arrays(v0, v1, v2, bvh):
     boxes, meta = build_skiplinks(bvh)
     perm = bvh.indices.astype(np.int64)
-    tv0, tv1, tv2 = v0[perm], v1[perm], v2[perm]
-    nodes_packed, tris_packed = pack_trace_tables(tv0, tv1, tv2, boxes, meta)
     return TraceArrays(
-        tri_v0=jnp.asarray(tv0), tri_v1=jnp.asarray(tv1),
-        tri_v2=jnp.asarray(tv2),
+        tri_v0=jnp.asarray(v0[perm]), tri_v1=jnp.asarray(v1[perm]),
+        tri_v2=jnp.asarray(v2[perm]),
         node_boxes=jnp.asarray(boxes), node_meta=jnp.asarray(meta),
-        nodes_packed=jnp.asarray(nodes_packed),
-        tris_packed=jnp.asarray(tris_packed),
     ), perm
-from surf_tpu.scene.mesh import make_cube, make_icosphere
 
 
 def _random_tris(n, seed=0):
@@ -83,7 +73,6 @@ def test_traversal_matches_brute_force(mesh_fn):
     bvh = builder.build_blas(v0, v1, v2)
     _validate_bvh(bvh, len(v0))
     arrays, perm = _trace_arrays(v0, v1, v2, bvh)
-    depth = bvh_max_depth(bvh) + 2
 
     rng = np.random.default_rng(1)
     n = 512
@@ -91,9 +80,9 @@ def test_traversal_matches_brute_force(mesh_fn):
     d = rng.normal(size=(n, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
 
-    tjit = jax.jit(traverse, static_argnums=(5, 6))
+    tjit = jax.jit(traverse, static_argnums=(5,))
     hit = tjit(arrays, jnp.asarray(o), jnp.asarray(d),
-               jnp.full(n, 1e30, jnp.float32), jnp.ones(n, bool), depth, False)
+               jnp.full(n, 1e30, jnp.float32), jnp.ones(n, bool), False)
     prim = np.asarray(hit.prim)
     prim_orig = np.where(prim >= 0, perm[np.maximum(prim, 0)], -1)
 
@@ -116,7 +105,7 @@ def test_traversal_matches_brute_force(mesh_fn):
 
     # any-hit agrees on occlusion
     hit_any = tjit(arrays, jnp.asarray(o), jnp.asarray(d),
-                   jnp.full(n, 1e30, jnp.float32), jnp.ones(n, bool), depth, True)
+                   jnp.full(n, 1e30, jnp.float32), jnp.ones(n, bool), True)
     assert np.array_equal(np.asarray(hit_any.prim) >= 0, bf_prim >= 0)
 
 
@@ -167,5 +156,5 @@ def test_single_triangle_bvh():
     o = jnp.asarray([[0.2, 0.2, -1.0], [5.0, 5.0, -1.0]])
     d = jnp.asarray([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]])
     hit = traverse(arrays, o, d, jnp.full(2, 1e30, jnp.float32),
-                   jnp.ones(2, bool), 2, False)
+                   jnp.ones(2, bool), False)
     assert int(hit.prim[0]) == 0 and int(hit.prim[1]) == -1

@@ -1,4 +1,4 @@
-"""End-to-end image parity: scalar golden vs vectorized oracle vs TPU
+"""End-to-end image parity: scalar golden vs vectorized oracle vs JAX
 wavefront path (SURVEY.md §4 dual-implementation-as-oracle strategy,
 BASELINE configs 1-2 at reduced resolution)."""
 

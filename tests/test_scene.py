@@ -112,8 +112,8 @@ def test_flattening_memory_scales_with_instances():
     assert h2.static.tri_count == 2 * cube.tri_count
     assert h8.static.tri_count == 8 * cube.tri_count
     # traversal tables scale with stored (instanced) tris, not unique tris
-    occ2 = int((np.asarray(h2.render_scene.trace.wide_lrec) >= 0).sum())
-    occ8 = int((np.asarray(h8.render_scene.trace.wide_lrec) >= 0).sum())
+    occ2 = h2.render_scene.trace.tri_v0.shape[0]
+    occ8 = h8.render_scene.trace.tri_v0.shape[0]
     assert occ2 == 2 * cube.tri_count and occ8 == 8 * cube.tri_count
 
 
